@@ -1,19 +1,18 @@
-"""Exp/pow-cone cost on the real TPU (VERDICT r1 #7).
+"""Exp/pow-cone cost on the default device (VERDICT r1 #7).
 
-Three honest measurements (perturbed inputs + forced host fetch, see
-CLAUDE.md):
+Three measurements (perturbed inputs per timed call):
 
 * **projection microbench** — us/call of the batched exp- and pow-cone
   projections at block counts {64, 1024, 16384}. Each projection is a
   fixed-trip safeguarded Newton-bisection (exp: 40 expansion + 26 trips
-  f32; pow: 28 trips f32 — cone.py), all VPU elementwise work.
+  f32; pow: 28 trips f32 — cone.py), all elementwise work.
 * **in-loop overhead** — fixed-iteration iters/s of the SAME-size random
   conic solve with (a) all-rpos rows, (b) one third of rows as exp
   blocks, (c) one third as pow blocks. The delta is what the cone
   actually costs inside the jitted PDHG loop.
 * **growthport end-to-end** — the growth-optimal allocation example
   (examples/growthport_powexp.py: power-cone tree + exp-cone entropy
-  budget) scaled to n=64 assets / 64 scenarios, solved on TPU f32,
+  budget) scaled to n=64 assets / 64 scenarios, solved in f32,
   objective checked against the host scipy SLSQP oracle.
 
 Run: python benchmarks/benchmark_expcone.py
@@ -31,11 +30,13 @@ sys.path.insert(0, "examples")
 
 import totsu_tpu as tt
 from totsu_tpu.solver import cone as cones
+from totsu_tpu.utils import enable_compile_cache
+
+enable_compile_cache()
 
 
 def _fetch(r):
-    jax.block_until_ready(r)
-    return float(np.asarray(jax.tree_util.tree_leaves(r)[0]).ravel()[0])
+    return jax.block_until_ready(r)
 
 
 def time_proj(kind, count, reps=100, trials=3):
@@ -93,7 +94,7 @@ def time_inloop(kind, n=512, m=2304, iters=2000, trials=2):
     return iters / best
 
 
-def growthport_tpu(n=64, s_num=64, h_budget=None, seed=0):
+def growthport_f32(n=64, s_num=64, h_budget=None, seed=0):
     from growthport_powexp import build_problem, scipy_oracle
     rng = np.random.default_rng(seed)
     returns = 1.0 + 0.3 * rng.standard_normal((s_num, n)) ** 2 \
@@ -136,82 +137,11 @@ def main():
 
     print("\n# growthport end-to-end, n=64 assets x 64 scenarios, "
           "f32 fast profile, eps 1e-4")
-    dt, iters, status, growth, g_ref = growthport_tpu()
+    dt, iters, status, growth, g_ref = growthport_f32()
     print(f"   {dt:.3f} s  {iters} iters  status={status}  "
           f"growth={growth:.6f}  scipy_oracle={g_ref:.6f}  "
           f"rel_err={abs(growth - g_ref) / g_ref:.2e}")
 
 
-def main_mega(sizes=(64, 128, 200, 300)):
-    """Megakernel A/B for exp/pow layouts (VERDICT r3 #3): fixed-iteration
-    iters/s and end-to-end time-to-1e-4 of kernel='mega' vs the XLA loop
-    vs the fast profile's other candidate (the direct engine), on small
-    dense instances with a third of the rows as 3-d cone blocks — the
-    latency-bound regime the kernel was built for (the growthport class).
-    """
-    import time as _t
-    print(f"# exp/pow megakernel A/B on {jax.devices()[0]}", flush=True)
-    _fetch(jax.jit(lambda x: x * 2.0)(jnp.ones((8,), jnp.float32)))
-
-    def make_mix(n, kind, seed=1):
-        """Feasible + bounded: n//2 3-d cone blocks with an interior
-        slack seed, plus box rows (the tests' _cone_mix_lp pattern)."""
-        rng = np.random.default_rng(seed)
-        blocks = n // 2
-        if kind == "exp":
-            fac, pt = tt.expc(count=blocks), np.array([0.0, 1.0, 2.0])
-        else:
-            fac, pt = tt.powc(0.5, count=blocks), np.array([2.0, 2.0, 1.0])
-        lay = tt.ConeLayout([fac, tt.rpos(2 * n)])
-        m = lay.dim
-        a = np.concatenate([
-            rng.normal(size=(3 * blocks, n)) / np.sqrt(n),
-            np.eye(n), -np.eye(n)]).astype(np.float32)
-        s0 = np.concatenate([np.tile(pt, blocks), np.ones(2 * n)])
-        b = (a @ (rng.normal(size=n) * 0.5) + s0).astype(np.float32)
-        c = rng.normal(size=n).astype(np.float32)
-        return jnp.asarray(c), jnp.asarray(a), jnp.asarray(b), lay
-
-    for kind in ("exp", "pow"):
-        for n in sizes:
-            c, g, h, lay = make_mix(n, kind)
-            m = lay.dim
-
-            def tts(param):
-                fn = jax.jit(lambda c_, a_, b_: tt.solve_jit(
-                    c_, a_, b_, lay, param))
-                r = fn(c, g, h)
-                _fetch(r)
-                best = np.inf
-                for t in range(2):
-                    ct = c * (1.0 + 1e-6 * (t + 1))
-                    t0 = _t.perf_counter()
-                    r = fn(ct, g, h)
-                    _fetch(r)
-                    best = min(best, _t.perf_counter() - t0)
-                return best, int(r.iters), int(r.status)
-
-            kw = dict(max_iter=300_000, eps_acc=1e-4, check_period=20,
-                      accel="halpern", normalize=True)
-            t_x, i_x, s_x = tts(tt.SolverParam(**kw))
-            t_m, i_m, s_m = tts(tt.SolverParam(kernel="mega", **kw))
-            t_d, i_d, s_d = tts(tt.SolverParam(
-                max_iter=300_000, eps_acc=1e-4, check_period=20,
-                method="direct", accel="halpern"))
-            # fixed-iteration throughput (4000 iters)
-            pf = dict(max_iter=4000, eps_acc=1e-12, check_period=100)
-            f_x, _, _ = tts(tt.SolverParam(**pf))
-            f_m, _, _ = tts(tt.SolverParam(kernel="mega", **pf))
-            print(f"{kind} n={n:4d} m={m:5d}: "
-                  f"xla {t_x * 1e3:6.1f} ms/{i_x} (s{s_x}) | "
-                  f"mega {t_m * 1e3:6.1f} ms/{i_m} (s{s_m}) | "
-                  f"direct {t_d * 1e3:6.1f} ms/{i_d} (s{s_d}) | "
-                  f"fixed-iters/s xla {4000 / f_x:8.0f} "
-                  f"mega {4000 / f_m:8.0f} (x{f_x / f_m:.2f})", flush=True)
-
-
 if __name__ == "__main__":
-    if "--mega" in sys.argv:
-        main_mega()
-    else:
-        main()
+    main()

@@ -1,4 +1,4 @@
-"""Structured-sparse vs dense crossover on the real TPU (VERDICT r1 #8).
+"""Structured-sparse vs dense crossover on the default device (VERDICT r1 #8).
 
 The reference is dense-only (MatOp, matop.rs:9-40). This repo adds two
 sparse paths and this benchmark locates where each pays at n ~ 8000:
@@ -8,15 +8,12 @@ sparse paths and this benchmark locates where each pays at n ~ 8000:
   128x128 tiles per tile-row (scalar density 1.6% ... 12.5%): full
   fixed-iteration solve iters/s vs the SAME matrix through DenseOp.
   Also reports device bytes for A (the capability argument: blocked-ELL
-  keeps problems addressable after dense A outgrows HBM).
+  keeps problems addressable after dense A outgrows device memory).
 * **SparseOp** (BCOO gather/scatter): one fused matvec-pair
-  (A @ u, A^T v) per call vs dense, at uniform-random 1% density —
-  quantifying its own docstring's warning that scatter is the TPU slow
-  path.
+  (A @ u, A^T v) per call vs dense, at uniform-random 1% density.
 * **tile-occupancy statistic** for uniform-random 1%: the fraction of
   128x128 tiles with at least one nonzero (~100%), demonstrating why
-  unstructured sparsity does not tile and dense stays the TPU path
-  for it.
+  unstructured sparsity does not tile.
 
 Run: python benchmarks/benchmark_sparse.py
 """
@@ -34,8 +31,7 @@ import totsu_tpu as tt
 
 
 def _fetch(r):
-    jax.block_until_ready(r)
-    return float(np.asarray(jax.tree_util.tree_leaves(r)[0]).ravel()[0])
+    return jax.block_until_ready(r)
 
 
 def make_banded_lp(n, k_tiles, tile=128, seed=0):
@@ -100,6 +96,8 @@ def time_matvec_pair(op, n, m, reps=200, trials=3):
 
 
 def main():
+    from totsu_tpu.utils import enable_compile_cache
+    enable_compile_cache()
     print(f"# device: {jax.devices()[0]}")
     n = 8192
     lay = tt.ConeLayout([tt.rpos(n)])

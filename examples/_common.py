@@ -7,8 +7,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def setup(cpu: bool = None, x64: bool = None):
-    """Pick the device. Default: run on whatever JAX has (TPU if present,
-    f32); with --cpu (or no accelerator) pin to host CPU with f64 like the
+    """Pick the device. Default: run on whatever JAX has (the GPU if
+    present, f32); with --cpu pin to the host CPU with f64 like the
     reference's FloatGeneric/LAPACK backends."""
     import jax
     if cpu is None:

@@ -4,11 +4,10 @@ For each noisy covariance estimate S_i, find the nearest correlation
 matrix: minimize ||X - S_i||_F subject to diag(X) = 1 and X >= 0 (PSD) —
 the classic SDP from risk-model cleanup. No reference counterpart as an
 example, but it exercises exactly the reference's SDP machinery (scaled-vec
-PSD cone, cone_psd.rs conventions) in the two modes that are new TPU
+PSD cone, cone_psd.rs conventions) in the two modes that are new
 capability (SURVEY.md 2.8 item 3): a vmapped lockstep batch, and the
-``psd(k, method='jacobi')`` parallel-order Jacobi projection whose sweet
-spot is exactly this shape — many small PSD blocks per iteration
-(BASELINE.md: 5-17x over eigh).
+``psd(k, method='jacobi')`` parallel-order Jacobi projection, meant for
+exactly this shape — many small PSD blocks per iteration.
 
 Conic form over variables u = (x [sn], t [1]), sn = k(k+1)/2 packed
 scaled-vec entries of X:

@@ -32,10 +32,11 @@ def build(x_num=8, y_num=6, seed=10_000):
     return w
 
 
-def solve_sdp(w, tt, param):
+def build_problem(w, tt, dtype=np.float64):
     """min <W, X> s.t. X PSD, diag(X) = 1 — expressed through the generic
     SDP builder: variables x_k = entries of packed X, LMI
-    sum_k x_k (-E_k) + 0 <= 0 i.e. X >= 0, equalities on diagonal slots."""
+    sum_k x_k (-E_k) + 0 <= 0 i.e. X >= 0, equalities on diagonal slots.
+    Returns the ConicProblem with data of ``dtype``."""
     l = w.shape[0]
     sn = l * (l + 1) // 2
     # c: the packed W read in upper-tri col-major order with off-diagonals
@@ -59,7 +60,12 @@ def solve_sdp(w, tt, param):
     for r, s in enumerate(diag_slots):
         a[r, s] = 1.0
     b = np.ones(l)
-    prob = tt.problems.sdp(c, f_mats, a, b)
+    return tt.problems.sdp(c.astype(dtype), f_mats.astype(dtype),
+                           a.astype(dtype), b.astype(dtype))
+
+
+def solve_sdp(w, tt, param):
+    prob = build_problem(w, tt)
     t0 = time.time()
     res = prob.solve_jit(param)
     res.x.block_until_ready()

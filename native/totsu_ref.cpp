@@ -2,7 +2,7 @@
 //
 // A self-contained f64 implementation of the same homogeneous self-dual
 // embedding + diagonally preconditioned Pock-Chambolle iteration that the
-// JAX solver runs on TPU (totsu_tpu/solver/conic.py; algorithm semantics
+// JAX solver runs on the accelerator (totsu_tpu/solver/conic.py; algorithm semantics
 // follow the reference solver at
 // /root/reference/solver_rust_conic/totsu_core/src/solver/solver.rs).
 //

@@ -1,4 +1,4 @@
-"""Blocked-ELL structured-sparse operator (VERDICT r1 #8): the TPU-native
+"""Blocked-ELL structured-sparse operator (VERDICT r1 #8): the
 large-problem path — gather + batched matmul both directions, no scatter."""
 
 import numpy as np
@@ -216,7 +216,7 @@ def test_blocked_ell_from_tiles_large_virtual_no_dense():
     """The point of from_tiles: an operator whose dense form would be
     prohibitive (here 4096^2 = 128 MB f64 — kept CPU-test-sized; the
     same constructor builds the 65,536^2 / 16 GB case from ~100 MB of
-    tiles, measured on TPU in BASELINE.md) built from its band tiles
+    tiles in bench.py and chip_smoke.py) built from its band tiles
     only, then solved through the routed indirect engine."""
     bm = bn = 128
     n = 4096

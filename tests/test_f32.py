@@ -1,5 +1,5 @@
-"""f32 robustness: certificates and convergence in the dtype the TPU
-leads with (VERDICT r1 #4; SURVEY section 7 flags criteria_inf's division
+"""f32 robustness: certificates and convergence in the dtype the
+accelerator runs (VERDICT r1 #4; SURVEY section 7 flags criteria_inf's division
 by small quantities, ref solver.rs:642-653, as an f32 risk).
 
 The suite's conftest enables x64, but dtype follows the input arrays —

@@ -13,7 +13,7 @@ import pytest
 
 import totsu_tpu as tt
 from totsu_tpu.parallel import (
-    make_mesh, solve_batch, shard_batch, shard_dense_problem,
+    batch_solver, make_mesh, solve_batch, shard_batch, shard_dense_problem,
 )
 
 
@@ -154,6 +154,26 @@ def test_2d_mesh_batch_and_row():
                         jnp.asarray(h[0]), layout, param)
     np.testing.assert_allclose(np.asarray(res.x[0]), np.asarray(solo.x),
                                atol=1e-6)
+
+
+def test_solve_batch_reuses_one_program():
+    """Repeated solve_batch calls on one layout / params dispatch the one
+    cached jit object, traced and compiled once (a fresh jit per call
+    re-traced and recompiled the whole solve every time)."""
+    rng = np.random.default_rng(7)
+    c, g, h = random_lp(rng, n=8, m=24, batch=(3,))
+    layout = tt.ConeLayout([tt.rpos(g.shape[-2])])
+    param = tt.SolverParam(max_iter=2_000, eps_acc=1e-4)
+    args = (jnp.asarray(c), jnp.asarray(g), jnp.asarray(h))
+    fn = batch_solver(layout, param)
+    first = solve_batch(*args, layout, param)
+    second = solve_batch(*args, layout, param)
+    assert batch_solver(layout, param) is fn
+    assert fn._cache_size() == 1
+    np.testing.assert_array_equal(np.asarray(first.x), np.asarray(second.x))
+    # the lowered program is the one solve_batch ran
+    again = fn.lower(*args).compile()(*args)
+    np.testing.assert_array_equal(np.asarray(again.x), np.asarray(first.x))
 
 
 def test_shard_batch_placement():

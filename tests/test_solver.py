@@ -66,7 +66,7 @@ def test_solve_jit_is_jittable_and_pure():
 
 
 def test_batched_vmap_solve():
-    # lockstep batched instances via vmap (new TPU capability, SURVEY 2.8)
+    # lockstep batched instances via vmap (new capability, SURVEY 2.8)
     layout = cones.ConeLayout([cones.rpos(2)])
     param = SolverParam(max_iter=20_000)
     g = jnp.array([[-1.0, 0.0], [0.0, -1.0]])
@@ -337,11 +337,11 @@ def test_fast_profile_respects_explicit_fields():
     import totsu_tpu as tt
     a = jnp.zeros((6, 3))
     lay = tt.ConeLayout([tt.rpos(6)])
-    # defaults: dense-small -> direct + halpern + check_period 20 +
-    # kernel 'auto' (the megakernel engages on TPU where measured faster)
+    # defaults: dense-small -> direct + halpern + check_period 20, the
+    # profile tag resolved to 'reference' so the expansion runs once
     p = _resolve_fast_profile(SolverParam(profile="fast"), a, lay)
-    assert (p.method, p.accel, p.check_period, p.kernel) \
-        == ("direct", "halpern", 20, "auto")
+    assert (p.method, p.accel, p.check_period, p.profile) \
+        == ("direct", "halpern", 20, "reference")
     # explicit pdhg stays pdhg and picks the first-order fast set
     p = _resolve_fast_profile(
         SolverParam(profile="fast", method="pdhg", relax=1.9), a, lay)
@@ -351,10 +351,10 @@ def test_fast_profile_respects_explicit_fields():
     p = _resolve_fast_profile(
         SolverParam(profile="fast", accel="restart", check_period=5), a, lay)
     assert p.accel == "restart" and p.check_period == 5
-    # explicit kernel='' (XLA loop) is preserved too
+    # explicit direct engine settings are preserved too
     p = _resolve_fast_profile(
-        SolverParam(profile="fast", kernel=""), a, lay)
-    assert p.kernel == "auto"  # '' IS the dataclass default -> filled in
+        SolverParam(profile="fast", method="direct", relax=1.5), a, lay)
+    assert p.method == "direct" and p.accel == "" and p.relax == 1.5
     # explicit pdhg + mixed-precision matvec streaming stays on pdhg
     p = _resolve_fast_profile(
         SolverParam(profile="fast", matvec_dtype="bfloat16"), a, lay)
@@ -362,12 +362,9 @@ def test_fast_profile_respects_explicit_fields():
 
 
 def test_fast_profile_routes_structured_operators():
-    """VERDICT r3 #1 done-criterion: the fast profile routes non-dense
-    operators to the MEASURED winner — the indirect direct engine
-    (BASELINE 'Indirect engine at n=8192': 0.072 s vs 0.097 s at
-    n=8192 blocked-ELL, 0.079 vs 0.098 matrix-free) — with halpern and
-    WITHOUT forcing equilibration (measured to hurt both engines on the
-    well-scaled banded instance)."""
+    """The fast profile routes non-dense operators to the indirect direct
+    engine with halpern, WITHOUT forcing equilibration (it cost both
+    engines iterations on the well-scaled banded instance)."""
     from totsu_tpu.solver.conic import _resolve_fast_profile
     import totsu_tpu as tt
     lay = tt.ConeLayout([tt.rpos(6)])
@@ -513,35 +510,34 @@ def test_matvec_dtype_direct_rejected():
                   SolverParam(method="direct", matvec_dtype="bfloat16"))
 
 
-def test_fast_profile_exp_pow_never_mega_first(monkeypatch):
-    """r4 crossover (BASELINE 'Megakernel exp/pow'): dense exp/pow
-    layouts route to the direct engine even on TPU where the megakernel
-    is available — DR's iteration-count advantage beats the kernel's
-    per-iteration win at every measured size."""
-    from totsu_tpu.solver import conic
+def test_fast_profile_exp_pow_never_mega_first():
+    """Small dense layouts of every cone kind the removed whole-solve
+    kernel covered — exp, pow, SOC, RSOC — all route to the direct
+    engine: no platform-dependent pdhg-first branch is left."""
     from totsu_tpu.solver.conic import _resolve_fast_profile
     import totsu_tpu as tt
-    monkeypatch.setattr(conic, "_exec_platform", lambda: "tpu")
     lay = tt.ConeLayout([tt.expc(count=2), tt.rpos(6)])
     a = jnp.zeros((lay.dim, 4), jnp.float32)
     p = _resolve_fast_profile(SolverParam(profile="fast"), a, lay)
-    assert p.method == "direct"
+    assert p.method == "direct" and p.accel == "halpern"
     layp = tt.ConeLayout([tt.powc(0.4, count=2), tt.rpos(6)])
     p = _resolve_fast_profile(SolverParam(profile="fast"), a, layp)
     assert p.method == "direct"
-    # SOC layouts keep the measured mega-first branch
-    lays = tt.ConeLayout([tt.soc(4, count=3)])
-    a2 = jnp.zeros((lays.dim, 4), jnp.float32)
-    p = _resolve_fast_profile(SolverParam(profile="fast"), a2, lays)
-    assert p.method == "pdhg" and p.kernel == "auto"
+    for lays in (tt.ConeLayout([tt.soc(4, count=3)]),
+                 tt.ConeLayout([tt.rsoc(4, count=3)])):
+        a2 = jnp.zeros((lays.dim, 4), jnp.float32)
+        p = _resolve_fast_profile(SolverParam(profile="fast"), a2, lays)
+        assert p.method == "direct" and p.accel == "halpern"
+    # progress logging no longer changes the routing
+    p = _resolve_fast_profile(
+        SolverParam(profile="fast", log_period=1000), a2, lays)
+    assert p.method == "direct"
+    assert not hasattr(SolverParam(), "kernel")
 
 
 def test_fast_profile_psd_layouts_stay_on_pdhg():
-    """r4 refinement (BASELINE 'Indirect engine at n=8192' PSD note):
-    structured-operator PSD layouts keep the pdhg fast path — measured on
-    the partitioning SDP, DR has no iteration advantage there (k=48:
-    pdhg 87 ms/460 iters vs direct 91/960; k=128: 642/1,480 vs
-    824/3,540)."""
+    """Structured-operator PSD layouts keep the pdhg fast path (the
+    inherited routing; ROADMAP Design 2 re-derives it on the H100)."""
     from totsu_tpu.solver.conic import _resolve_fast_profile
     import totsu_tpu as tt
     lay = tt.ConeLayout([tt.psd(4), tt.zero(3)])
@@ -553,7 +549,7 @@ def test_fast_profile_psd_layouts_stay_on_pdhg():
 
 def test_set_par_by_env(monkeypatch):
     """utils2::set_par_by_env parity (ref set_par_by_env.rs:5-25) plus the
-    TPU-specific knobs added since (PROFILE/ACCEL/KERNEL)."""
+    the knobs added since (PROFILE/ACCEL)."""
     from totsu_tpu.utils import set_par_by_env
     monkeypatch.setenv("MAX_ITER", "1234")
     monkeypatch.setenv("EPS_ACC", "1e-4")
@@ -679,16 +675,17 @@ def test_resume_state_exact_across_engines_and_accels():
 
 
 def test_resume_state_direct_carries_caches():
-    """The direct engine's checkpoint carries the cached Cholesky factor /
-    Sherman-Morrison border, and a resumed solve reuses them instead of
-    rebuilding (VERDICT r4 #2 'cheap')."""
+    """The direct engine's checkpoint carries the cached inverse of
+    I + A^T A (from its Cholesky factor) and the Sherman-Morrison border,
+    and a resumed solve reuses them instead of rebuilding (VERDICT r4 #2
+    'cheap')."""
     import totsu_tpu as tt
     c, g, h, lay = _boxed_lp(n=25, seed=11)
     p = SolverParam(max_iter=30, method="direct", accel="halpern",
                     return_state=True)
     part = tt.solve_jit(c, g, h, lay, p)
     aux = part.state.aux
-    assert {"chol_c", "gh", "denom", "ws", "anchor", "ke"} <= set(aux)
+    assert {"spd_inv", "gh", "denom", "ws", "anchor", "ke"} <= set(aux)
     # the resumed trace must not contain a Cholesky factorization:
     # lower the jaxpr and look for the cholesky primitive
     fn = jax.jit(lambda cc, aa, bb, st: tt.solve_jit(

@@ -1,7 +1,7 @@
-"""totsu_tpu — a TPU-native first-order conic linear program solver.
+"""totsu_tpu — a JAX first-order conic linear program solver.
 
-A from-scratch JAX/XLA/Pallas framework with the capability surface of
-convexbrain/Totsu (the Rust reference lives at /root/reference): the
+A from-scratch JAX/XLA framework with the capability surface of
+convexbrain/Totsu (the Rust reference; see SURVEY.md): the
 homogeneous self-dual embedding of a conic LP
 
     minimize    c^T x
@@ -19,8 +19,8 @@ and shard over ``jax.sharding.Mesh`` axes.
 Layer map (mirrors reference SURVEY.md section 1):
   * ``totsu_tpu.solver``   — Solver core: params, operators, cones, HSDE loop
                              (ref: solver_rust_conic/totsu_core/src/solver/)
-  * ``totsu_tpu.ops``      — packed-symmetric storage, PSD projection, Pallas
-                             kernels (ref: totsu_core linalg backends)
+  * ``totsu_tpu.ops``      — packed-symmetric storage, PSD projection
+                             (ref: totsu_core linalg backends)
   * ``totsu_tpu.problems`` — LP/QP/QCQP/SOCP/SDP reductions to conic form
                              (ref: solver_rust_conic/totsu/src/problem/)
   * ``totsu_tpu.parallel`` — meshes, sharded operators, batched solves, ADMM

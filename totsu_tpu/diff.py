@@ -59,15 +59,15 @@ from totsu_tpu.solver.params import SolverParam
 
 def _hi(a, b):
     """HIGHEST-precision dot: under vmap (batched gradients) these lower
-    to MXU dot_generals whose default precision rounds operands to bf16
-    (see solver/operator.py DenseOp.matvec)."""
+    to batched dot_generals that DEFAULT precision may run in TF32 on the
+    GPU (see solver/operator.py DenseOp.matvec)."""
     return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _rtol(lsqr_rtol, dtype):
     """Resolve the LSQR stopping tolerance for the solve dtype. The
     default (None) is 1e-12 in f64 and 30*eps in f32 — a 1e-12 target is
-    unreachable on the TPU dtype and would run every gradient to the full
+    unreachable in f32 and would run every gradient to the full
     iteration cap (VERDICT r3 missing #4 / weak #6)."""
     if lsqr_rtol is not None:
         return float(lsqr_rtol)

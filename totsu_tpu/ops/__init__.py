@@ -1,3 +1,3 @@
-"""Compute primitives: packed-symmetric storage, PSD projection, Pallas kernels."""
+"""Compute primitives: packed-symmetric storage, PSD projection."""
 
 from totsu_tpu.ops import sympack

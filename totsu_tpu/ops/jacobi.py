@@ -4,7 +4,8 @@ The reference proves a plain cyclic Jacobi sweep suffices at solver
 tolerances (FloatGeneric's ``jacobi_eig``, ref floatgeneric.rs:273-324,
 backs its ConePSD projection). That loop rotates one off-diagonal element
 at a time — O(k^2) sequential 2x2 rotations per sweep — which is the wrong
-shape for a TPU. This module re-derives it VPU-first:
+shape for a data-parallel accelerator. This module re-derives it as
+elementwise work:
 
 * a **round-robin tournament schedule** picks k/2 *disjoint* pivot pairs
   per round (k-1 rounds touch every off-diagonal pair exactly once per
@@ -14,7 +15,8 @@ shape for a TPU. This module re-derives it VPU-first:
   disjoint Givens rotations commute. Crucially J has exactly two nonzeros
   per row, so ``A <- J^T A J`` is NOT a matmul: it is two static
   row/column permutations plus elementwise multiply-adds —
-  O(k^2 * batch) VPU work per round instead of O(k^3 * batch) MXU work:
+  O(k^2 * batch) elementwise work per round instead of an O(k^3 * batch)
+  matmul:
 
       (A J)[i, b]   = c_b A[i, b] - s_b A[i, partner[b]]
       (J^T B)[a, b] = c_a B[a, b] - s_a B[partner[a], b]
@@ -151,20 +153,17 @@ def jacobi_eigh(a, sweeps: int = 10, eps: float = 0.0):
 def psd_part_jacobi(x, sweeps: Optional[int] = None):
     """PSD projection via :func:`jacobi_eigh`: clip negative eigenvalues,
     reconstruct. Exact (to roundoff) where psd_part_ns has a floor; all
-    permute/multiply-add VPU work where jnp.linalg.eigh is a latency-bound
+    permute/multiply-add work where jnp.linalg.eigh is a latency-bound
     custom call. Mirrors ref ConePSD::proj's map ``e -> e if e > 0``
     (cone_psd.rs:69-76).
 
     ``sweeps=None`` auto-scales with the order (measured: f32 roundoff by
     sweep 8 up to k = 128 on random spectra; a safety margin covers up to
     k = 256). Beyond k = 256 an explicit count is required: the regime is
-    unmeasured for convergence AND measured to be a foot-gun for cost —
-    the BASELINE.md jacobi compile envelope records ~quadratic compile
-    growth (61.6 s at k = 256) with runtime 10-20x behind eigh at k >=
-    128, so a silent k = 512 path would only ever burn minutes to lose
-    (use method='eigh' there; exact-profile k = 512 is measured at 32
-    iters/s end-to-end). Pass an explicit count likewise for
-    pathological spectra.
+    unmeasured for convergence, and the unrolled rounds make compile time
+    grow about quadratically with k, so a silent k = 512 path would
+    burn minutes compiling (use method='eigh' there). Pass an explicit
+    count likewise for pathological spectra.
     """
     if sweeps is None:
         k = x.shape[-1]
@@ -175,6 +174,6 @@ def psd_part_jacobi(x, sweeps: Optional[int] = None):
         sweeps = 10 if k <= 128 else 14
     w, v = jacobi_eigh(x, sweeps=sweeps)
     w = jnp.maximum(w, 0.0)
-    # HIGHEST: TPU f32 matmuls otherwise round operands to bf16 on the MXU
+    # HIGHEST: DEFAULT precision may run f32 matmuls in TF32 on the GPU
     return jnp.einsum("...ik,...k,...jk->...ij", v, w, v,
                       precision=jax.lax.Precision.HIGHEST)

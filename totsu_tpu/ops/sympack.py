@@ -12,9 +12,9 @@ Two conventions appear in the reference and both are kept here:
   so that ``||vec(X)||_2 == ||X||_F``; used for the PSD cone and SDP data
   (ref: totsu_core/src/cone_psd.rs:13-19).
 
-On TPU we never do strided packed arithmetic: packed vectors are expanded to
-dense (k, k) matrices with a static gather (XLA lowers it to a cheap
-reshuffle) and all compute is dense, batched and MXU-friendly.
+No strided packed arithmetic is done: packed vectors are expanded to dense
+(k, k) matrices with a static gather (XLA lowers it to a cheap reshuffle) and
+all compute is dense and batched.
 """
 
 import functools
@@ -109,8 +109,8 @@ def psd_part(x):
     """
     w, vecs = jnp.linalg.eigh(x)
     w = jnp.maximum(w, 0.0)
-    # HIGHEST: TPU f32 matmuls otherwise round operands to bf16 on the MXU,
-    # costing ~1e-3 absolute error in the reconstruction
+    # HIGHEST: DEFAULT precision may run f32 matmuls in TF32 on the GPU
+    # (10-bit mantissa), costing ~1e-3 absolute error in the reconstruction
     return jnp.einsum("...ik,...k,...jk->...ij", vecs, w, vecs,
                       precision=jax.lax.Precision.HIGHEST)
 
@@ -176,8 +176,8 @@ def psd_part_ns(x, iters: Optional[int] = None):
     with the static scale schedule of :func:`_ns_scaled_schedule` (17
     composite cubic steps reach machine precision on clean spectra where
     30 unscaled steps were needed in round 1 — ~2x fewer matmuls). The
-    MXU-native alternative to :func:`psd_part` for the inner-loop PSD
-    cone projection on TPU, where small/medium ``eigh`` is latency-bound.
+    matmul-only alternative to :func:`psd_part` for the inner-loop PSD
+    cone projection, where small/medium ``eigh`` is latency-bound.
     Projection error floor ~5e-6 of the block scale, ample for
     eps_acc >= 1e-4 solves. Batched over leading dims.
 
@@ -187,7 +187,7 @@ def psd_part_ns(x, iters: Optional[int] = None):
     norm = jnp.sqrt(jnp.sum(x * x, axis=(-2, -1), keepdims=True))
     safe = jnp.where(norm > 0, norm, 1.0)
     s = x / safe
-    hi = jax.lax.Precision.HIGHEST  # avoid TPU bf16 matmul rounding
+    hi = jax.lax.Precision.HIGHEST  # no TF32 rounding on the GPU
     scales = ((1.0,) * iters) if iters is not None else _ns_scaled_schedule()
     for sc in scales:
         y = s * jnp.asarray(sc, dtype=s.dtype)
@@ -222,7 +222,7 @@ def proj_psd_packed(v, *, scaled: bool = True, method: str = "eigh"):
     f32cuda.rs:376-378 is the design wart this avoids).
 
     ``method``: 'eigh' (exact, XLA custom call), 'ns' (Newton-Schulz
-    matrix sign — matmul-only, fastest inside TPU loops, ~5e-6 error
+    matrix sign — matmul-only, ~5e-6 error
     floor; see :func:`psd_part_ns`), or 'jacobi' (parallel-order Jacobi —
     matmul-only AND exact; batched-friendly; see
     :func:`totsu_tpu.ops.jacobi.jacobi_eigh`).

@@ -1,6 +1,5 @@
 """Batched lockstep solves: vmap over problem instances, optionally sharded
-over a mesh 'batch' axis (embarrassingly parallel — the scaling-efficiency
-workhorse of BASELINE.json's north star).
+over a mesh 'batch' axis (embarrassingly parallel).
 
 Instances iterate in lockstep inside one ``lax.while_loop``; each carries
 its own status, and the loop runs until every instance terminates (the
@@ -8,6 +7,7 @@ masking semantics fall out of ``vmap``-of-``while_loop``, which XLA lowers
 to a single fused loop with per-instance predicates).
 """
 
+import functools
 from typing import Any, Optional, Tuple
 
 import jax
@@ -43,12 +43,12 @@ def solve_batch(
     * ``c``: (B, n), ``a``: (B, m, n) array or batch-leading LinOp pytree,
       ``b``: (B, m); the cone layout is shared.
     * With ``mesh``, inputs are sharded over its ``batch`` axis first;
-      XLA keeps every per-instance computation local to its device
-      (pure data parallelism, zero collectives in the iteration).
+      XLA keeps every per-instance computation local to its device. The
+      one collective is an all-reduce of the lockstep loop's predicate
+      (does any lane still run?) on each trip of the outer loop.
     * ``chunk_iters=N`` runs the batch as N-iteration dispatches stitched
       with exact per-instance :class:`~totsu_tpu.ResumeState` checkpoints
-      (the batched analogue of ``solve(chunk_iters=N)`` — for transports
-      with a dispatch-duration limit, CLAUDE.md). Instances that finish
+      (the batched analogue of ``solve(chunk_iters=N)``). Instances that finish
       in an earlier chunk stay terminated (their checkpointed status is
       terminal), so their reported ``iters`` and solution are exactly
       those of the unchunked batch; dispatches continue while any
@@ -64,14 +64,23 @@ def solve_batch(
         return _solve_batch_chunked(c, a, b, cone, param, warm_start,
                                     int(chunk_iters))
 
-    def one(ci, ai, bi, ws):
-        return solve_jit(ci, ai, bi, cone, param, warm_start=ws)
-
     if warm_start is None:
-        fn = jax.vmap(lambda ci, ai, bi: one(ci, ai, bi, None))
-        return jax.jit(fn)(c, a, b)
-    fn = jax.vmap(one)
-    return jax.jit(fn)(c, a, b, warm_start)
+        return batch_solver(cone, param)(c, a, b)
+    return batch_solver(cone, param, has_warm=True)(c, a, b, warm_start)
+
+
+@functools.lru_cache(maxsize=64)
+def batch_solver(cone: ConeLayout, param: SolverParam,
+                 has_warm: bool = False):
+    """The jitted, vmapped program :func:`solve_batch` dispatches, cached
+    per cone layout / params so repeated batches reuse one trace and one
+    executable. Call it, or ``.lower(c, a, b[, warm_start]).compile()`` it
+    to inspect that program."""
+    if has_warm:
+        return jax.jit(jax.vmap(lambda ci, ai, bi, ws: solve_jit(
+            ci, ai, bi, cone, param, warm_start=ws)))
+    return jax.jit(jax.vmap(lambda ci, ai, bi: solve_jit(
+        ci, ai, bi, cone, param)))
 
 
 def _solve_batch_chunked(c, a, b, cone, param, warm_start, chunk_iters):

@@ -10,8 +10,8 @@ from jax.sharding import Mesh
 def local_mesh(axis_sizes: Mapping[str, int],
                devices: Optional[Sequence] = None) -> Mesh:
     """Build a Mesh from (axis name -> size). Uses the default device list
-    (or an explicit one, e.g. ``jax.devices('cpu')`` on hosts whose TPU
-    plugin hijacks the default backend)."""
+    (or an explicit one, e.g. ``jax.devices('cpu')`` for a virtual CPU
+    mesh on a machine that also has GPUs)."""
     if devices is None:
         devices = jax.devices()
     sizes = list(axis_sizes.values())

@@ -1,14 +1,14 @@
 """Multi-host initialization helpers.
 
 The solver is host-count agnostic: meshes built over all devices span
-hosts automatically (ICI within a slice, DCN across hosts). This module
+hosts automatically (NVLink within a host, the network across hosts). This module
 only wraps the standard bootstrap; there is nothing NCCL/MPI-like to port
 from the reference (it is single-device; SURVEY.md 2.8).
 
-Typical pod-slice usage::
+Typical multi-host usage::
 
     from totsu_tpu.parallel import multihost, make_mesh, solve_batch
-    multihost.init()                      # jax.distributed handshake
+    multihost.init("10.0.0.1:1234", num_processes=2, process_id=rank)
     mesh = make_mesh(batch=jax.device_count() // 2, row=2)
     res = solve_batch(c, a, b, cone, param, mesh=mesh)
 
@@ -27,9 +27,13 @@ from typing import Optional
 def init(coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
          process_id: Optional[int] = None) -> None:
-    """Initialize jax.distributed (no-op if already initialized or if
-    running single-process). Arguments default to the TPU metadata
-    auto-detection path."""
+    """Initialize jax.distributed (no-op if already initialized).
+
+    On GPU clusters pass all three arguments: ``coordinator_address`` as
+    ``host:port`` of process 0, the process count, and this process's
+    rank. Left at None, JAX falls back to its own cluster auto-detection
+    (SLURM, Open MPI, ...), which fails where no cluster manager is
+    present."""
     import jax
     try:
         jax.distributed.initialize(

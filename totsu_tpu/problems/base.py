@@ -53,10 +53,12 @@ class ConicProblem:
                          row_sharding=self.row_sharding)
 
 
-def _asvec(v, rows=None):
-    """Coerce to a 1-D array; None -> zeros(rows)."""
+def _asvec(v, rows=None, dtype=None):
+    """Coerce to a 1-D array; None -> zeros(rows) of ``dtype`` (pass the
+    problem's dtype: an empty default-float block would otherwise promote
+    f32 data to f64 in the stacked operator when x64 is enabled)."""
     if v is None:
-        v = jnp.zeros((0 if rows is None else rows,))
+        v = jnp.zeros((0 if rows is None else rows,), dtype=dtype)
     v = jnp.asarray(v)
     if v.ndim == 2 and v.shape[1] == 1:
         v = v[:, 0]
@@ -65,10 +67,11 @@ def _asvec(v, rows=None):
     return v
 
 
-def _asmat(a, rows=None, cols=None):
-    """Coerce to a 2-D array; None -> zeros((rows, cols))."""
+def _asmat(a, rows=None, cols=None, dtype=None):
+    """Coerce to a 2-D array; None -> zeros((rows, cols)) of ``dtype``
+    (see :func:`_asvec`)."""
     if a is None:
-        a = jnp.zeros((0 if rows is None else rows, cols))
+        a = jnp.zeros((0 if rows is None else rows, cols), dtype=dtype)
     a = jnp.asarray(a)
     if a.ndim != 2:
         raise ValueError(f"expected matrix, got shape {a.shape}")

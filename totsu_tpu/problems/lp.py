@@ -23,10 +23,10 @@ def lp(c, g=None, h=None, a=None, b=None) -> ConicProblem:
     equality constraints; any of them may be None/empty."""
     c = _asvec(c)
     n = c.shape[0]
-    g = _asmat(g, 0, n)
-    h = _asvec(h, g.shape[0])
-    a = _asmat(a, 0, n)
-    b = _asvec(b, a.shape[0])
+    g = _asmat(g, 0, n, c.dtype)
+    h = _asvec(h, g.shape[0], c.dtype)
+    a = _asmat(a, 0, n, c.dtype)
+    b = _asvec(b, a.shape[0], c.dtype)
     m = g.shape[0]
     p = a.shape[0]
 

@@ -15,7 +15,7 @@ the epigraph variable t, which only the i=0 block touches):
 
 Every Pi is square-rooted at build time via one *batched* eigh
 (ref qcqp.rs:443-448 does m+1 sequential LAPACK calls; here it is a single
-vmapped eigendecomposition — MXU/VPU friendly).
+vmapped eigendecomposition).
 """
 
 import jax.numpy as jnp
@@ -39,8 +39,8 @@ def qcqp(p_mats, q_vecs, r_scls, a=None, b=None) -> ConicProblem:
     q_vecs = jnp.asarray(q_vecs)
     r_scls = _asvec(r_scls)
     m1, n = q_vecs.shape
-    a = _asmat(a, 0, n)
-    b = _asvec(b, a.shape[0])
+    a = _asmat(a, 0, n, q_vecs.dtype)
+    b = _asvec(b, a.shape[0], q_vecs.dtype)
     p = a.shape[0]
     dtype = q_vecs.dtype
 

@@ -33,10 +33,10 @@ def qp(p_mat, q, g=None, h=None, a=None, b=None) -> ConicProblem:
     q = _asvec(q)
     n = q.shape[0]
     p_mat = jnp.asarray(p_mat)
-    g = _asmat(g, 0, n)
-    h = _asvec(h, g.shape[0])
-    a = _asmat(a, 0, n)
-    b = _asvec(b, a.shape[0])
+    g = _asmat(g, 0, n, q.dtype)
+    h = _asvec(h, g.shape[0], q.dtype)
+    a = _asmat(a, 0, n, q.dtype)
+    b = _asvec(b, a.shape[0], q.dtype)
     m = g.shape[0]
     p = a.shape[0]
 

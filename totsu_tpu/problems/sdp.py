@@ -27,19 +27,18 @@ def sdp(c, f_mats, a=None, b=None, psd_method: str = "auto") -> ConicProblem:
 
     * ``c``: (n,) objective
     * ``f_mats``: (n+1, k, k) stacked dense symmetric matrices F_0..F_n
-    * ``psd_method``: 'auto' (default — resolves per solve from the
-      measured TPU crossovers, see ``cones.resolve_auto_methods``),
-      'eigh' (exact projection), 'ns' (Newton-Schulz matmul-only
-      projection, 2.5-3.1x faster end-to-end on TPU at k >= 48,
-      ~5e-6 error floor) or 'jacobi' (parallel-order Jacobi — exact AND
-      matmul-free; fastest for many small blocks, see totsu_tpu.ops.jacobi)
+    * ``psd_method``: 'auto' (default — resolves per solve, see
+      ``cones.resolve_auto_methods``), 'eigh' (exact projection), 'ns'
+      (Newton-Schulz matmul-only projection, ~5e-6 error floor) or
+      'jacobi' (parallel-order Jacobi — exact AND matmul-free; meant for
+      many small blocks, see totsu_tpu.ops.jacobi)
     """
     c = _asvec(c)
     n = c.shape[0]
     f_mats = jnp.asarray(f_mats)
     k = f_mats.shape[-1]
-    a = _asmat(a, 0, n)
-    b = _asvec(b, a.shape[0])
+    a = _asmat(a, 0, n, c.dtype)
+    b = _asvec(b, a.shape[0], c.dtype)
     p = a.shape[0]
 
     f_vecs = sympack.pack(f_mats, scaled=True)  # (n+1, k(k+1)/2)

@@ -34,8 +34,8 @@ def socp(f, g_list, h_list, c_list, d_list, a=None, b=None) -> ConicProblem:
     """
     f = _asvec(f)
     n = f.shape[0]
-    a = _asmat(a, 0, n)
-    b = _asvec(b, a.shape[0])
+    a = _asmat(a, 0, n, f.dtype)
+    b = _asvec(b, a.shape[0], f.dtype)
     p = a.shape[0]
     dtype = f.dtype
 
@@ -43,8 +43,8 @@ def socp(f, g_list, h_list, c_list, d_list, a=None, b=None) -> ConicProblem:
     rhs = []
     factors = []
     for gi, hi, ci, di in zip(g_list, h_list, c_list, d_list):
-        gi = _asmat(gi, 0, n)
-        hi = _asvec(hi, gi.shape[0])
+        gi = _asmat(gi, 0, n, f.dtype)
+        hi = _asvec(hi, gi.shape[0], f.dtype)
         ci = _asvec(ci)[:n]
         ni = gi.shape[0]
         rows.append(-ci[None, :])

@@ -11,7 +11,7 @@ The reference expresses a cone K as a trait with two methods
 Here a cone is **static metadata** (a :class:`ConeLayout` of factors, plain
 Python) plus **pure functions** over the concatenated slack vector. Sizes are
 static, so slicing is free at trace time, and runs of equal-size blocks are
-projected batched (reshape + vmapped math) — the TPU-native equivalent of the
+projected batched (reshape + vmapped math) — the data-parallel equivalent of the
 reference's per-block Rust loops (e.g. ProbQCQPCone qcqp.rs:304-349).
 
 Factor kinds and their projections (primal cone; ``dual=True`` gives the dual
@@ -106,16 +106,15 @@ def psd(k: int, count: int = 1, method: str = "auto") -> Factor:
     """PSD cone blocks vec(S+^k), each of packed length k(k+1)/2.
 
     ``method='ns'`` uses the Newton-Schulz matrix-sign projection
-    (matmul-only; much faster inside TPU solve loops, ~5e-6 error floor);
+    (matmul-only, ~5e-6 error floor);
     ``method='jacobi'`` uses the parallel-order Jacobi eigendecomposition
     (matmul-only AND exact; see totsu_tpu.ops.jacobi).
 
     ``method='auto'`` (default) picks per solve from (k, count, profile,
-    eps_acc) using the measured TPU crossovers (BASELINE.md SDP sweep; see
-    :func:`resolve_auto_methods`): exact 'eigh' everywhere under the
-    reference profile, 'ns' under ``profile='fast'`` at tolerances its
-    ~5e-6 error floor cannot disturb (measured 2-6x end-to-end), 'jacobi'
-    for many small blocks where batched eigh is latency-bound."""
+    eps_acc) by the policy in :func:`resolve_auto_methods`: exact 'eigh'
+    everywhere under the reference profile, 'ns' under ``profile='fast'``
+    at tolerances its ~5e-6 error floor cannot disturb, 'jacobi' for many
+    small blocks."""
     if method not in ("auto", "eigh", "ns", "jacobi"):
         raise ValueError(f"unknown PSD projection method {method!r}; "
                          "expected 'auto', 'eigh', 'ns' or 'jacobi'")
@@ -137,8 +136,8 @@ def expc(count: int = 1) -> Factor:
     is not self-dual; its projection is derived via the Moreau
     decomposition proj_{K*}(x) = x + proj_K(-x). The primal projection is
     a branch-free batched bisection on a univariate root problem (see
-    :func:`_proj_exp_blocks`) — TPU-friendly: fixed trip count, no
-    data-dependent control flow."""
+    :func:`_proj_exp_blocks`) — fixed trip count, no data-dependent
+    control flow."""
     return Factor(EXP, 3, count)
 
 
@@ -234,9 +233,8 @@ def _proj_rsoc_blocks(xb):
 def _proj_exp_rst(r0, s0, t0):
     """Elementwise exponential-cone projection core: maps same-shaped
     arrays (r0, s0, t0) — each element an independent block — to the
-    projected (r, s, t). Shape-agnostic (no cross-element ops), so the
-    blocked path below and the Pallas megakernel's lane-wise path
-    (ops/pallas/megakernel.py) share one implementation.
+    projected (r, s, t). Shape-agnostic (no cross-element ops), so any
+    batching of the blocks can share this one implementation.
 
     Following Friberg
     ("Projection onto the exponential cone: a univariate root-finding
@@ -253,7 +251,7 @@ def _proj_exp_rst(r0, s0, t0):
     fixed-trip bracket expansion + a safeguarded Newton-bisection hybrid
     on an overflow-safe rescaling of h (multiplied by
     e^{-|rho|}(rho^2-rho+1) > 0, sign- and root-preserving) —
-    branch-free, vmappable, MXU/VPU-only.
+    branch-free, vmappable, elementwise only.
 
     Trivial cases (exact, mask-selected):
       v0 in K                -> v0
@@ -375,9 +373,8 @@ def _proj_exp_blocks(xb):
 def _proj_pow_rst(x0, y0, z0, alpha):
     """Elementwise power-cone projection core: same-shaped arrays
     (x0, y0, z0), each element an independent block; ``alpha`` is a
-    static float or a broadcastable array (per-element exponents — the
-    megakernel's lane-wise path). Shared by the blocked path below and
-    ops/pallas/megakernel.py.
+    static float or a broadcastable array (per-element exponents). Used
+    by the blocked path below.
 
     The
     non-trivial case (v0 outside K and its polar -K*) projects onto the
@@ -586,21 +583,18 @@ def resolve_auto_methods(layout: "ConeLayout", param) -> "ConeLayout":
     algorithm for one solve. Called at solve entry (conic.solve_jit) with
     the ORIGINAL param (before fast-profile expansion rewrites ``profile``).
 
-    Policy, from the measured TPU v5e crossovers (BASELINE.md "SDP
-    projection/method sweep"; benchmarks/benchmark_sdp.py):
+    Policy (benchmarks/benchmark_sdp.py measures the three methods). The
+    crossovers below were calibrated on the hardware this solver was
+    first built for and are inherited unmeasured on the H100, where
+    ``eigh`` lowers to cuSOLVER (ROADMAP Speed 6):
 
     * ``profile='fast'`` and ``eps_acc >= 1e-4`` and ``k >= 16``: **'ns'**
-      — Newton-Schulz is 1.1-5.9x faster per projection and 2.5-3.1x
-      faster end-to-end at k in {48, 128, 256}; its ~5e-6 relative error
-      floor sits far below these tolerances.
+      — Newton-Schulz is matmul-only, and its ~5e-6 relative error floor
+      sits far below these tolerances.
     * exact required (reference profile or tight eps_acc): **'jacobi'**
-      only for many small blocks (k <= 16 and count >= 64, where batched
-      eigh is latency-bound: 17x at 512 blocks of k=8; the k <= 16 cap
-      also sits where jacobi's unrolled-round compile time is <= 1.6 s —
-      BASELINE "Jacobi compile-time envelope"), else **'eigh'** — at
-      k >= 48 the Jacobi round unroll loses to the fused eigh custom
-      call at every measured size. The ranking is measured through
-      k = 512 (eigh exact-profile 32 iters/s end-to-end, ns 84): large
+      only for many small blocks (k <= 16 and count >= 64, where one
+      batched eigh call per block is latency-bound, and where jacobi's
+      unrolled rounds still compile quickly), else **'eigh'** — large
       orders stay on eigh/ns, never jacobi.
     """
     if not any(f.kind == PSD and f.variant == "auto" for f in layout.factors):

@@ -12,7 +12,7 @@ Here operators are immutable dataclasses registered as PyTrees, so they flow
 through ``jit`` / ``vmap`` / ``pjit`` like arrays; methods are pure functions.
 alpha/beta accumulation is dropped — XLA fuses the surrounding adds.
 
-``DenseOp`` is the workhorse (MXU-friendly dense GEMV; the reference's
+``DenseOp`` is the workhorse (dense GEMV; the reference's
 ``MatOp`` matop.rs:51-175). Structured compositions (``VStackOp`` /
 ``HStackOp`` / ``BlockOp`` / ``ZeroOp`` / ``ScaledOp``) mirror the block
 stacking of the problem layer (e.g. ProbLPOpA lp.rs:49-115) and are the
@@ -72,7 +72,7 @@ class LinOp:
     def dual_matvec(self, u, v):
         """(A @ u, A^T @ v) — the pair every HSDE application needs
         (solver.rs:109-157 applies op and trans_op back-to-back). Subclasses
-        may fuse the two passes over A (see ops/pallas/dual_matvec.py)."""
+        may fuse the two passes over A."""
         return self.matvec(u), self.rmatvec(v)
 
     # -- optional structure-preserving transforms (VERDICT r2 #3: these are
@@ -127,13 +127,11 @@ class DenseOp(LinOp):
         return self.a.shape
 
     def matvec(self, x):
-        # HIGHEST is load-bearing: under vmap this is a batched matmul on
-        # the MXU, whose DEFAULT precision rounds operands to bf16 — a
-        # ~1e-3 relative matvec error that stalls eps_acc=1e-3
-        # convergence on real TPUs (batched solves ran to max_iter while
-        # single-instance GEMVs, which avoid the MXU, converged). Exact
-        # f32 everywhere; measured cost on the single-instance flagship
-        # row: none (GEMV was never MXU-bound).
+        # HIGHEST is load-bearing: under vmap this is a batched matmul,
+        # which XLA's GPU backend may run in TF32 at DEFAULT precision
+        # (operands rounded to a 10-bit mantissa) — a ~1e-3 relative
+        # matvec error that stalls eps_acc=1e-3 convergence of batched
+        # solves. A GEMV is bandwidth-bound, so exact f32 costs nothing.
         return jnp.matmul(self.a, x, precision=jax.lax.Precision.HIGHEST)
 
     def rmatvec(self, y):
@@ -162,23 +160,6 @@ class DenseOp(LinOp):
 
     def to_dense(self):
         return self.a
-
-
-@_pytree_dataclass
-class PallasDenseOp(DenseOp):
-    """DenseOp whose dual_matvec uses the fused single-pass Pallas kernel
-    (f32/bf16 storage, TPU only). Opt-in: wrap with ``PallasDenseOp(a)`` or
-    set TOTSU_PALLAS=1 to have solve_jit wrap dense operators automatically.
-
-    Measured guidance (docs/ARCHITECTURE.md section 6): on current
-    hardware plain XLA fuses the {A@u, A'v} pair at HBM roofline and keeps
-    VMEM residency across while_loop iterations, beating this kernel at
-    every size — keep the default (XLA) path unless profiling says
-    otherwise on your chip."""
-
-    def dual_matvec(self, u, v):
-        from totsu_tpu.ops.pallas.dual_matvec import dual_matvec_f32
-        return dual_matvec_f32(self.a, u, v)
 
 
 @_pytree_dataclass
@@ -476,9 +457,9 @@ class SparseOp(LinOp):
     """Sparse (BCOO) matrix operator for large sparse conic programs.
 
     The reference has no sparse support (MatOp is dense-only); this extends
-    the surface via ``jax.experimental.sparse``. Note XLA-on-TPU lowers
-    sparse matvecs to gather/scatter — correct everywhere, fastest on CPU;
-    dense/structured operators remain the TPU speed path.
+    the surface via ``jax.experimental.sparse``, whose matvecs lower to
+    gather/scatter. Its speed against the dense and blocked-ELL operators
+    on the H100 is not measured (ROADMAP Speed 7).
     """
     mat: Any  # jax.experimental.sparse.BCOO, shape (m, n)
 
@@ -555,23 +536,20 @@ class SparseOp(LinOp):
 
 @_pytree_dataclass(meta=("m", "n", "bm", "bn"))
 class BlockedEllOp(LinOp):
-    """Blocked-ELL sparse operator: the TPU-native structured-sparse path.
+    """Blocked-ELL sparse operator: the structured-sparse path.
 
     A is partitioned into a grid of (bm x bn) tiles; only nonzero tiles
     are stored, padded to a fixed K tiles per tile-row (ELL layout). Both
     matvec directions run as one gather of input tiles + one batched
-    matmul — static shapes, MXU-resident, **no scatter**: the transpose
-    structure is prebuilt (2x tile memory), because scatter-add is the
-    slow path on TPU.
+    matmul — static shapes, **no scatter**: the transpose structure is
+    prebuilt (2x tile memory), so neither direction needs a scatter-add.
 
     This is the large-problem capability the reference lacks (MatOp is
-    dense-only, matop.rs:9-40) and the ``SparseOp`` (BCOO gather/scatter)
-    doesn't deliver on TPU. It pays when the *tile-level* density is low
+    dense-only, matop.rs:9-40). It pays when the *tile-level* density is low
     — block-banded, stencil, arrow, multi-stage structures. Uniformly
     random scalar sparsity does NOT tile (at 1% uniform density a
     128x128 tile holds ~160 nonzeros, so nearly every tile is occupied);
-    for such matrices use DenseOp (TPU) or SparseOp (CPU). Measured
-    crossovers in BASELINE.md.
+    for such matrices use DenseOp or SparseOp.
 
     Data fields (PyTree leaves):
       * blocks   (nbr, K,  bm, bn) — row-major tiles, zero-padded slots
@@ -724,8 +702,8 @@ class BlockedEllOp(LinOp):
         xp = jnp.zeros((np_,), dtype=x.dtype).at[:self.n].set(x)
         xt = xp.reshape(-1, self.bn)                  # (nbc, bn)
         gathered = xt[self.cols]                      # (nbr, K, bn)
-        # HIGHEST: tile matmuls hit the MXU; default precision would
-        # round operands to bf16 (see DenseOp.matvec)
+        # HIGHEST: default precision may run the tile matmuls in TF32
+        # (see DenseOp.matvec)
         y = jnp.einsum("rkij,rkj->ri", self.blocks, gathered,
                        precision=jax.lax.Precision.HIGHEST)
         return y.reshape(-1)[:self.m]

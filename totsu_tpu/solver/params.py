@@ -79,17 +79,16 @@ class SolverParam:
     #: data, so a CONVERGED status certifies exactly the same problem as
     #: with normalization off. ``None`` = engine default: off for 'pdhg'
     #: (preserves the reference iterate path, solver.rs:364-457), on for
-    #: 'direct' (no reference counterpart). Measured on the benchmark LP
-    #: contract (n=100, eps 1e-3): 12-25x fewer iterations for both
-    #: engines (BASELINE.md).
+    #: 'direct' (no reference counterpart). On the benchmark LP contract
+    #: (n=100, eps 1e-3) it cut iteration counts 12-25x for both engines.
     normalize: Optional[bool] = None
     #: Return the raw iteration state in SolveResult.state for exact
     #: checkpoint/resume via the ``resume_state`` argument.
     return_state: bool = False
     #: Storage dtype for the operator A inside the *update* matvecs
     #: (e.g. 'bfloat16'); None = iterate dtype (reference behavior).
-    #: Dense operators only. The update loop then streams A from HBM at
-    #: half the bytes — the hot path is HBM-bound, so this approaches a
+    #: The update loop then streams A from device memory at half the
+    #: bytes — the hot path is bandwidth-bound, so this can approach a
     #: 2x iterations/s gain on large problems — while the termination
     #: criteria, preconditioner and certificates keep the full-precision
     #: A. The iteration converges to the solution of the bf16-rounded
@@ -102,44 +101,31 @@ class SolverParam:
     #: data; tighter when A is exactly representable, e.g. integer or
     #: sparse stencil data) and fixed-iteration throughput runs; see
     #: docs/ARCHITECTURE.md section 6 for why it is NOT auto-switched.
-    #: Only use when A is HBM-bound (larger than VMEM): measured 1.88x at
-    #: n=4000 but 0.8x at n=1000, where A is VMEM-resident and the
-    #: in-flight widening just adds VPU work (BASELINE.md).
+    #: Its speed on the H100 is not measured.
     matvec_dtype: Optional[str] = None
     #: Parameter profile. 'reference' (default) leaves every knob at its
     #: reference-parity value: ``solve()`` then reproduces the reference
-    #: iterate path exactly. 'fast' fills in the measured-fastest settings
-    #: for every knob the caller left at its default — it never overrides
-    #: an explicitly set field:
+    #: iterate path exactly. 'fast' fills in a faster setting for every
+    #: knob the caller left at its default — it never overrides an
+    #: explicitly set field:
     #:
-    #: * small mega-eligible f32 problems on TPU (n <= 300, or n <= 200
-    #:   when the layout has RSOC blocks — measured crossovers, BASELINE
-    #:   "Megakernel A/B"): pdhg + ``accel='halpern'`` + ``kernel='auto'``
-    #:   (the Pallas whole-solve kernel beats the direct engine there);
-    #: * else dense A and n <= 8192 (r5 measured bound): ``method=
-    #:   'direct'`` + ``accel='halpern'`` (a cached factorization/inverse
-    #:   turns 10^4-10^5 first-order iterations into ~10^4 DR
-    #:   iterations; measured n=2000: 0.571 s vs 0.813 pdhg, n=4000:
-    #:   16.6 s vs 39.9, n=6144: 80 s vs 148, n=8192: 138 s vs a 120k-
-    #:   iteration pdhg cap UNCONVERGED — BASELINE "Dense direct-engine
-    #:   bound" + "Dense frontier (r5)");
+    #: * dense A and n <= 8192: ``method='direct'`` + ``accel='halpern'``
+    #:   (a cached factorization turns 10^4-10^5 first-order iterations
+    #:   into a few thousand DR iterations);
     #: * else structured/matrix-free A without PSD factors: the INDIRECT
-    #:   direct engine (warm-started CG — r4 measured winner at n=1024
-    #:   and n=8192, BASELINE "Indirect engine at n=8192"); PSD layouts
-    #:   and exp/pow-with-dense-A keep their measured winners (pdhg and
-    #:   direct respectively — see BASELINE); the host-facing
-    #:   :func:`solve` additionally probes the data's column-norm spread
-    #:   and switches on ``equil_iters=10`` past spread 10 (the r5
-    #:   ill-scaled A/B: equilibration is the only converging config
-    #:   there, while it HURTS well-scaled structured data);
-    #: * otherwise: ``accel='halpern'`` + ``normalize=True`` +
-    #:   ``equil_iters=10`` (dense A) on the pdhg engine;
+    #:   direct engine (warm-started CG); the host-facing :func:`solve`
+    #:   additionally probes the data's column-norm spread and switches
+    #:   on ``equil_iters=10`` past spread 10 (badly scaled data, where
+    #:   equilibration is the only converging configuration, while it
+    #:   costs iterations on well-scaled structured data);
+    #: * otherwise (PSD layouts, row-sharded solves, n > 8192):
+    #:   ``accel='halpern'`` + ``normalize=True`` + ``equil_iters=10``
+    #:   (dense A) on the pdhg engine;
     #: * ``check_period=20`` either way (amortizes the 2 extra operator
     #:   applications of the termination test).
     #:
-    #: Measured on the reference benchmark-LP contract (n=100, f32,
-    #: eps 1e-3): 148,640 iterations / 1.9 s (reference profile, TPU)
-    #: vs a few hundred iterations / ~10 ms (fast). See BASELINE.md.
+    #: The thresholds were inherited from the solver's first hardware
+    #: target and have not been re-derived on the H100 (see PERF.md).
     profile: str = "reference"
     #: Linear-system preconditioner for the INDIRECT direct engine (CG on
     #: I + A^T A for structured/matrix-free operators). 'auto' (default)
@@ -149,22 +135,9 @@ class SolverParam:
     #: The Jacobi scaling is free on well-scaled data (the diagonal is
     #: then near-constant, so M-solve is a no-op rescale) and is what
     #: keeps the CG iteration count bounded on badly row-scaled
-    #: instances — measured A/B in BASELINE.md (r5). No reference
-    #: counterpart (the reference has no iterative linear mode at all).
+    #: instances. No reference counterpart (the reference has no
+    #: iterative linear mode at all).
     cg_precond: str = "auto"
-    #: Iteration-loop backend for the pdhg engine. '' (default) = the XLA
-    #: ``lax.while_loop`` path. 'mega' = force the Pallas whole-solve
-    #: megakernel (ops/pallas/megakernel.py): the ENTIRE loop — matvec
-    #: pairs, projections, criteria, early exit — runs inside one Pallas
-    #: call with A^T VMEM-resident, eliminating the per-op overhead that
-    #: dominates small/mid problems (raises if the problem is outside its
-    #: envelope: dense f32 A fitting VMEM, zero/R+/SOC/RSOC cones,
-    #: accel in ('', 'halpern')). 'auto' = use the megakernel on TPU when
-    #: supported and inside the measured-win envelope, else the XLA loop;
-    #: ``profile='fast'`` resolves '' to 'auto'. Both backends run the
-    #: same algorithm; iterates agree to reduction-order roundoff
-    #: (tests/test_megakernel.py). ``log_period`` is ignored in-kernel.
-    kernel: str = ""
 
     @property
     def bounded_max_iter(self) -> int:

@@ -1,7 +1,7 @@
 """Solution polishing: active-set refinement of a converged solve.
 
-First-order engines deliver eps_acc-accurate solutions; in f32 (the TPU
-datatype) that is ~1e-3. Polishing recovers near-machine-precision f64
+First-order engines deliver eps_acc-accurate solutions; in f32 (the
+accelerator datatype) that is ~1e-3. Polishing recovers near-machine-precision f64
 solutions from them by solving the KKT system restricted to the active
 set — the standard SCS "solution polish" trick. No reference counterpart.
 

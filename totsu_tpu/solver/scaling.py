@@ -86,7 +86,7 @@ def scaling_spread(a_op: LinOp) -> float:
     ``col_sqsum`` — the same diagonal that drives the indirect
     engine's Jacobi preconditioner). This is the measure that tracks
     the MEASURED failure axis: column-scale disparity stalls outer DR
-    without Ruiz (BASELINE "Ill-scaled indirect A/B"). Calibrated
+    without Ruiz (the ill-scaled indirect A/B of round 5). Calibrated
     anchors: well-scaled instances probe at 1.1-2.9 (flagship banded
     +box 1.1, dense random 1.2, well banded 2.9) while the ill-scaled
     family probes at 24-172 (span-1e3 n=4096: 24; span-1e4 n=4096:

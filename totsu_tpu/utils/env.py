@@ -2,8 +2,9 @@
 
 Mirrors the reference's ``utils2::set_par_by_env``
 (ref: examples/utils2/src/set_par_by_env.rs:5-25): MAX_ITER / EPS_ACC /
-EPS_INF / EPS_ZERO / LOG_PERIOD override solver parameters, plus
-CHECK_PERIOD for the TPU-specific amortized termination test.
+EPS_INF / EPS_ZERO / LOG_PERIOD override solver parameters, plus the
+knobs this solver adds (CHECK_PERIOD, EQUIL_ITERS, RELAX, METHOD,
+PROFILE, ACCEL).
 """
 
 import dataclasses
@@ -25,17 +26,19 @@ def set_par_by_env(param: SolverParam) -> SolverParam:
             updates[name.lower()] = int(os.environ[name])
     if "RELAX" in os.environ:
         updates["relax"] = float(os.environ["RELAX"])
-    for name in ("METHOD", "PROFILE", "ACCEL", "KERNEL"):
+    for name in ("METHOD", "PROFILE", "ACCEL"):
         if name in os.environ:
             updates[name.lower()] = os.environ[name]
     return dataclasses.replace(param, **updates) if updates else param
 
 
 def use_cpu(enable_x64: bool = True):
-    """Pin JAX to the host CPU backend (developer/test convenience).
+    """Make the host CPU the default device (developer/test convenience).
 
-    The TPU plugin on some hosts ignores ``JAX_PLATFORMS=cpu``, so this pins
-    via ``jax_default_device`` explicitly. Call before any computation.
+    On a machine with a GPU, ``JAX_PLATFORMS=cpu`` set before JAX starts
+    hides the GPU entirely; this call instead keeps the GPU visible and
+    sends un-placed computations to the CPU via ``jax_default_device``.
+    Call before any computation.
     """
     import jax
     if enable_x64:
